@@ -1,9 +1,9 @@
 // Native host-mode `ska build` engine (FASTA path).
 //
-// The framework's product path is the TPU pipeline; host mode
+// The framework's product path is the device pipeline; host mode
 // (SKA_PLATFORM=cpu) is the availability fallback, and running the
 // sort-based XLA program on a 1-core CPU loses to the reference's
-// hashmap design (BASELINE.md's end-to-end honesty table). This engine
+// hashmap design. This engine
 // gives the fallback the same data-structure class the reference uses —
 // rolling extraction + swisstable/ahash-style flat maps — while
 // producing output BYTE-IDENTICAL to the device pipeline:
@@ -690,7 +690,7 @@ void ska_map_lookup(const uint64_t* sorted, long long n,
 // (ska_ref.rs:520-526) — replacing numpy's searchsorted + clip +
 // row-compare + three hit-width temporaries (fancy-index gather,
 // RC_IUPAC table gather, where-select), each of which costs fresh-page
-// faults at this host's 0.3-1.8 GB/s (BASELINE.md host-memory notes).
+// faults, which are slow on hosts with little memory bandwidth.
 //
 // Returns the hit count h; out_hit[0..h) = needle index of each hit
 // (ascending), out_rows[0..h*S) = translated rows. Caller sizes both

@@ -262,7 +262,7 @@ int main(int argc, char** argv) {
     g_argc = argc;
     g_argv = argv;
     if (argc < 2) fallback();
-    if (getenv("SKA_COORDINATOR")) fallback();  // pod-slice: python path
+    if (getenv("SKA_COORDINATOR")) fallback();  // multi-process: python path
     const char* nc = getenv("SKA_NATIVE_CMDS");
     if (nc && !strcmp(nc, "0")) fallback();
     std::string cmd(argv[1]);

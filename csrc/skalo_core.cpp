@@ -974,7 +974,7 @@ int64_t skalo_core_ks_m(void* h) { return ((Core*)h)->ks_m; }
 // kmer_samples export sorted by (hi, lo): hi/lo length G, masks G x M
 // hi may be NULL when the caller knows every full k-mer fits 62 bits
 // (len_kmer <= 31): skips writing a G*8-byte all-zero limb array,
-// which is pure fresh-page fault cost on this host (BASELINE.md)
+// which is pure fresh-page fault cost
 void skalo_core_ks_fill(void* h, uint64_t* hi, uint64_t* lo, uint64_t* masks) {
   try {
     Core& c = *(Core*)h;

@@ -552,7 +552,7 @@ long long ska_cbor_encode_u128(
 // hi may be NULL: then bignums also stop the scan (the caller re-enters
 // with limb buffers from the stop point) — this lets pure-u64 arrays
 // decode with HALF the output traffic, which matters because fresh-page
-// faults dominate bulk decode cost on some hosts (see BASELINE.md).
+// faults dominate bulk decode cost on some hosts.
 long long ska_cbor_decode_uints(
     const uint8_t* in, long long len, long long n,
     uint64_t* hi, uint64_t* lo, long long* consumed
@@ -608,7 +608,7 @@ long long ska_cbor_decode_uints(
 // Byte-narrow variant: decode consecutive CBOR unsigned ints that all fit
 // u8 straight into a uint8 array — 1/8th the output pages of the u64
 // decoder, which is what the big `.skf` variant matrix (one base byte per
-// cell) actually needs on fault-slow hosts (see BASELINE.md). Stops at the
+// cell) actually needs on fault-slow hosts. Stops at the
 // first value > 255, non-uint item, or truncation; the caller then redoes
 // the whole array through ska_cbor_decode_uints (decode CPU is ~3 ns/item,
 // so a discarded partial pass is cheap next to the page traffic saved).

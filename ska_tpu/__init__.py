@@ -1,15 +1,15 @@
-"""ska_tpu: a TPU-native split k-mer analysis framework.
+"""ska_tpu: split k-mer analysis as data-parallel JAX programs.
 
 A from-scratch reimplementation of the capabilities of SKA2
-(bacpop/ska.rust) designed for JAX/XLA/Pallas on TPU hardware:
+(bacpop/ska.rust) designed for JAX/XLA on an NVIDIA GPU:
 
 - FASTA/FASTQ parsing to integer sequence tensors (host, C++-accelerated)
-- split k-mer extraction as a vectorized/Pallas windowed kernel
+- split k-mer extraction as a vectorized windowed kernel in plain JAX
   (replaces the rolling iterator in reference src/ska_dict/split_kmer.rs)
 - sort-based segmented merges of packed-key arrays on device
   (replaces hashmaps in reference src/merge_ska_dict.rs)
 - data-parallel sample sharding over a jax.sharding.Mesh with
-  all-gather + segmented reduction collectives (replaces rayon)
+  all_to_all + segmented reduction collectives (replaces rayon)
 
 Capability parity targets the reference CLI: build, align, map, distance,
 merge, delete, weed, nk, cov and lo (see reference src/cli.rs:167-426).

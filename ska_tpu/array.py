@@ -299,7 +299,7 @@ class SkaArray:
     # --- distances (merge_ska_array.rs:416-438, 587-632) -------------------
 
     def distance(self, constant: float, filt_ambig: bool):
-        """Pairwise distances via a 16-class Gram matrix on the MXU.
+        """Pairwise distances via a 16-class Gram matrix product.
 
         Per-site work in the reference (variant_dist,
         merge_ska_array.rs:587-632) depends only on the pair of 4-bit

@@ -1,7 +1,7 @@
 """2-bit DNA encoding, IUPAC base-set algebra and packed-key bit ops.
 
 Replaces the reference's lookup-table layer (src/ska_dict/bit_encoding.rs)
-with a set-based formulation that vectorizes on TPU:
+with a set-based formulation that vectorizes on the device:
 
 - bases encode as 2 bits: A:00 C:01 T:10 G:11 via ``(ascii >> 1) & 3``
   (bit_encoding.rs:34-36); reverse complement is ``b ^ 2`` (:46-48).

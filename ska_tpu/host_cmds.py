@@ -182,7 +182,7 @@ def _eligible(args):
     if os.environ.get("SKA_NATIVE_CMDS", "1") == "0":
         return False
     if os.environ.get("SKA_COORDINATOR"):
-        return False  # pod-slice runs: only host 0 writes (cli._ostream)
+        return False  # multi-process runs: only host 0 writes (cli._ostream)
     return True
 
 

@@ -1,48 +1,28 @@
 """ctypes loader for the C++ host-I/O accelerator (csrc/skanative.cpp).
 
-Builds on demand with g++ if the shared object is missing; import fails
-cleanly (callers fall back to pure Python) when no toolchain exists.
+The shared object is never committed: it is built from csrc/ with g++
+on first import, and rebuilt whenever a source is newer than it
+(nativebuild.py). Import fails cleanly (callers fall back to pure
+Python) when no toolchain exists.
 """
 
 import ctypes
 import os
-import subprocess
 
-_HERE = os.path.dirname(__file__)
+from . import nativebuild
+
 # SKA_NATIVE_SO points at an alternative build of the native library
 # (e.g. an ASan/UBSan-instrumented one for sanitizer runs); the default
 # is the in-tree artifact, rebuilt automatically when csrc/ is newer.
-_SO = os.environ.get("SKA_NATIVE_SO") or os.path.join(_HERE, "_skanative.so")
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "csrc")
-_SRCS = [
-    os.path.join(_CSRC, "skanative.cpp"),
-    os.path.join(_CSRC, "skalo_core.cpp"),
-    os.path.join(_CSRC, "skalo_snps.cpp"),
-    os.path.join(_CSRC, "merge_batches.cpp"),
-    os.path.join(_CSRC, "host_build.cpp"),
-    os.path.join(_CSRC, "host_modes.cpp"),
-]
+_SO = os.environ.get("SKA_NATIVE_SO") or nativebuild.LIBRARY
 
-
-def _build():
-    subprocess.run(
-        ["g++", "-O3", "-fPIC", "-std=c++17", "-pthread", "-shared",
-         "-o", _SO] + _SRCS,
-        check=True,
-        capture_output=True,
-    )
-
-
-_have_src = all(os.path.exists(s) for s in _SRCS)
 if not os.environ.get("SKA_NATIVE_SO"):
     # never auto-overwrite a user-supplied library
-    if not os.path.exists(_SO) or (
-        _have_src
-        and max(os.path.getmtime(s) for s in _SRCS) > os.path.getmtime(_SO)
-    ):
-        if not _have_src:
+    if not all(os.path.exists(s) for s in nativebuild.LIBRARY_SRCS):
+        if not os.path.exists(_SO):
             raise ImportError("skanative source not found")
-        _build()
+    else:
+        nativebuild.library()
 
 _lib = ctypes.CDLL(_SO)
 _lib.ska_crc32c.restype = ctypes.c_uint32

@@ -37,7 +37,7 @@ def _shift_left_arr(a, s: int):
 
 def window_all(valid, n: int):
     """out[i] = AND of valid[i..i+n) (False out of range), via O(log n)
-    shift-doubling passes — gathers and cumsums are slow on TPU."""
+    shift-doubling passes (static shifts only: no gathers or scans)."""
     cur = valid
     cur_len = 1
     acc = None

@@ -114,31 +114,29 @@ def lax_sort_fast(ops, num_keys: int, dimension: int = -1,
                   is_stable: bool = True):
     """Drop-in jax.lax.sort with a cheaper multi-key path.
 
-    Measured on TPU v5e (32 x 4M uint64 rows): a 1-key sort carrying a
-    payload costs the SAME as a bare 1-operand sort (0.43s), while a
-    2-key sort costs 1.71x (0.74s) — the lexicographic comparator, not
-    data movement, is the cost. So multi-key sorts run as: stable sort
-    by the FIRST key with everything else as payload, then ONE
-    violation check (an adjacent pair with equal first keys whose
-    remaining keys descend), and only if it fires a lax.cond re-sorts
-    with the full comparator. Ties in the leading 64 bits of packed
-    split k-mer keys need >= 30 identical leading flank bases, so real
-    data almost never pays the fallback; when it does, output is still
-    exact. Both paths produce the unique stable lexicographic order, so
-    results are bit-identical either way.
+    A lexicographic multi-key comparator can cost far more than the data
+    movement of its payloads, so multi-key sorts run as: stable sort by
+    the FIRST key with everything else as payload, then ONE violation
+    check (an adjacent pair with equal first keys whose remaining keys
+    descend), and only if it fires a lax.cond re-sorts with the full
+    comparator. Ties in the leading 64 bits of packed split k-mer keys
+    need >= 30 identical leading flank bases, so real data almost never
+    pays the fallback; when it does, output is still exact. Both paths
+    produce the unique stable lexicographic order, so results are
+    bit-identical either way. Whether the GPU's sort lowering gains from
+    this split is not measured yet.
 
     Do NOT call under vmap: vmapped cond executes both branches. Batched
     callers sort 2-D operands with dimension=-1 instead (one shared flag
     for the whole batch).
 
-    is_stable=False shaves a further ~19% (measured 0.74s -> 0.60s for
-    the full 2-key sort, 0.69 -> 0.55 for the 1-key pass) but is only
-    sound when (a) payload operands attached to EQUAL full keys are
-    interchangeable (e.g. identical by construction, or consumed by a
-    commutative reduction), and (b) ties in the first key are rare or
-    carry equal remaining keys — an unstable first pass scrambles tied
-    runs, so common first-key ties with ordered later keys would fire
-    the fallback every time (use the stable default there).
+    is_stable=False is cheaper but is only sound when (a) payload
+    operands attached to EQUAL full keys are interchangeable (e.g.
+    identical by construction, or consumed by a commutative reduction),
+    and (b) ties in the first key are rare or carry equal remaining keys
+    — an unstable first pass scrambles tied runs, so common first-key
+    ties with ordered later keys would fire the fallback every time (use
+    the stable default there).
     """
     if num_keys == 1:
         return jax.lax.sort(
@@ -196,16 +194,16 @@ def searchsorted_via_sort(sorted_keys, queries):
     """Lower-bound lookup of (M, W) queries in (N, W) sorted keys via one
     merged sort instead of binary search.
 
-    Random gathers are the TPU's weak spot: the fori_loop binary search
-    below costs ~23 full-array gathers (measured 2.25s for 4M-in-4M on
-    v5e), while sorting the concatenation with a query-first tie tag and
-    reading ranks off a cumsum costs two lax.sorts (~0.1s). Equivalent to
+    The fori_loop binary search below costs ~log2(N) full-array random
+    gathers; sorting the concatenation with a query-first tie tag and
+    reading ranks off a cumsum costs two lax.sorts instead. Which of the
+    two is faster on the GPU is not measured yet. Equivalent to
     np.searchsorted(side='left').
 
     Inputs are padded to power-of-two buckets (table pads = all-ones max
     keys sort last and never change a lower bound; query pads are sliced
-    off) so jit shapes are dataset-independent — each fresh XLA compile
-    costs ~20s through the remote compiler.
+    off) so jit shapes are dataset-independent and compiled programs are
+    reused across datasets.
     """
     N, W = sorted_keys.shape
     M = queries.shape[0]

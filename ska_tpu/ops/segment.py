@@ -3,7 +3,7 @@
 This is the framework's runtime layer: the reference's hashmaps
 (src/ska_dict.rs:76-113 per-sample dict, src/ska_dict/bloom_filter.rs
 count filter) become sorts over packed keys followed by segmented
-reductions — exact, deterministic and TPU-friendly. All functions are
+reductions — exact and deterministic. All functions are
 fixed-shape: invalid rows carry an all-ones sentinel key which sorts last,
 and callers receive a valid count.
 """

@@ -57,7 +57,7 @@ def use_distributed() -> bool:
     if flag == "auto" and os.environ.get("SKA_PLATFORM") == "cpu":
         # pinned host mode can never be a multi-chip accelerator backend;
         # deciding from the env keeps host-native commands jax-free
-        # (an explicit =1 still probes: pod-slice tests pin cpu AND force
+        # (an explicit =1 still probes: multi-process tests pin cpu AND force
         # the mesh path on the virtual device mesh)
         return False
     from ..jaxinit import jax

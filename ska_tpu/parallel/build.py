@@ -346,7 +346,7 @@ def distributed_build_multi(calls, k, rc, mesh, min_count=0):
 
     def _put(x_np):
         # make_array_from_callback materializes only the addressable
-        # shards, so this works unchanged on a multi-process (pod-slice)
+        # shards, so this works unchanged on a multi-process (multi-host)
         # mesh where plain device_put of a host array cannot
         x_np = np.asarray(x_np)
         return jax.make_array_from_callback(

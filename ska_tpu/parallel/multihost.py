@@ -1,13 +1,13 @@
-"""Multi-host (pod-slice) initialization for the distributed build.
+"""Multi-host initialization for the distributed build.
 
 The reference is explicitly single-node: its README tells users to split
 sample lists into blocks, run `ska build` per block, and `ska merge` the
 .skf files by hand (reference README.md:124). Here the same scale-out is
-first-class: every process in a pod slice calls `init_multihost()`, after
+first-class: every process of the deployment calls `init_multihost()`, after
 which `jax.devices()` spans all chips and the key-range-repartitioned
 merge in ska_tpu.parallel.build runs over the global mesh — the
-`all_to_all` exchange rides ICI within a host and DCN across hosts, and
-each process owns a contiguous key-range shard of the output rows.
+`all_to_all` exchange rides NVLink within a host and the network across
+hosts, and each process owns a contiguous key-range shard of the output rows.
 
 `ska build` auto-selects the mesh path when more than one device is
 visible (api.build), so on a multi-host deployment the only extra step
@@ -19,9 +19,9 @@ is initializing the process group before invoking the CLI/library:
 (or call init_multihost() programmatically). Host 0 gathers the final
 array; other hosts hold their row shards until collected.
 
-This module is thin glue over jax.distributed: single-chip containers
-(like this repo's CI/bench rig) never import it, and the virtual-CPU
-tests exercise the same mesh code path in one process.
+This module is thin glue over jax.distributed: single-process runs,
+including one process driving every GPU of a host, never import it, and
+the virtual-CPU tests exercise the same mesh code path in one process.
 """
 
 import logging

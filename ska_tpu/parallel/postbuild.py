@@ -3,9 +3,10 @@ distributed `ska distance` Gram.
 
 The reference is single-node for every post-build command (README.md:124
 tells users to shard builds manually); these go beyond it on the
-framework's TPU-first axis. Both follow the build path's recipe
+framework's multi-device axis. Both follow the build path's recipe
 (parallel/build.py): shard_map over the same 'samples' mesh axis,
-XLA collectives over ICI, static shapes with host-side escalation.
+XLA collectives between devices, static shapes with host-side
+escalation.
 
 * distributed_lookup — the sort-merge-rank dictionary lookup at the
   heart of `ska map` (ska_ref.rs:508-533; serial device path
@@ -19,7 +20,7 @@ XLA collectives over ICI, static shapes with host-side escalation.
 * distributed_class_gram — the 16-class co-occurrence Gram behind
   `ska distance` (merge_ska_array.rs:416-438,587-632; serial device
   path distance.py:class_gram), sharded by sites: each device computes
-  the weighted Gram of its row shard on its MXU and one psum over the
+  the weighted Gram of its row shard and one psum over the
   mesh yields the exact global Gram. Site rows are deduplicated on the
   host first (distance.py rationale), so each shard's f32 sums stay
   integer-exact below 2^24 total sites — same exactness policy as the

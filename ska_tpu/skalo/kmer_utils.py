@@ -80,7 +80,7 @@ def _rev64_np(x):
     """Reverse the 32 2-bit groups of each uint64 (bit_encoding.rs:182-195).
 
     Two scratch buffers instead of ~25 temporaries: on fault-slow hosts
-    (BASELINE.md) the naive chain's fresh allocations dominate, and this
+    the naive chain's fresh allocations dominate, and this
     runs over multi-million-element planes in the skalo expansion."""
     x = np.asarray(x)
     r = x.astype(np.uint64, copy=True)

@@ -1,4 +1,4 @@
-"""In-memory JSON API — the TPU-native equivalent of the reference's
+"""In-memory JSON API — this framework's equivalent of the reference's
 WebAssembly frontend (src/wasm/ + src/lib.rs:894-1446).
 
 The reference ships a browser build exposing two wasm-bindgen structs:
@@ -12,11 +12,11 @@ The reference ships a browser build exposing two wasm-bindgen structs:
   and a canonical neighbor-joining tree in Newick form (the reference
   delegates NJ to the speedytree crate, ska_align.rs:104-110).
 
-A browser/wasm32 target makes no sense for a TPU framework; the
+A browser/wasm32 target makes no sense for a GPU framework; the
 capability it provides — an embeddable, file-less, JSON-in/JSON-out API
 for interactive use — is delivered here as plain Python classes over the
 same device pipeline the CLI uses. Inputs are file paths (the browser's
-``web_sys::File`` handles have no TPU equivalent); outputs are the same
+``web_sys::File`` handles have no equivalent here); outputs are the same
 JSON documents, key-for-key.
 
 Known divergence, by design: the reference's >=3-fastq pairing loop

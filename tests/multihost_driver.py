@@ -2,7 +2,7 @@
 
 Each process owns 2 virtual CPU devices; together they form a 4-device
 global mesh connected through jax.distributed (Gloo collectives), the
-same topology class as a 2-host pod slice. Both processes run the
+same topology class as a 2-host cluster. Both processes run the
 key-range-repartitioned distributed build and compare the gathered
 result against the expected arrays computed single-process by the test.
 """

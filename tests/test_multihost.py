@@ -1,5 +1,5 @@
 """True multi-process distributed build: two JAX processes (2 CPU devices
-each) joined via jax.distributed — the pod-slice topology the reference
+each) joined via jax.distributed — the multi-host topology the reference
 has no equivalent of (its README.md:124 says to shard builds by hand).
 
 The single-process 8-device virtual mesh elsewhere in the suite cannot
@@ -87,7 +87,7 @@ def test_two_process_distributed_build(tmp_path, min_count):
 
 
 def test_two_process_cli_build(tmp_path, ref_in):
-    """The documented pod-slice quick start (parallel/multihost.py): two
+    """The documented multi-host quick start (parallel/multihost.py): two
     processes run the SAME `ska build` CLI command with SKA_COORDINATOR
     set; the mesh spans both, host 0 alone writes the .skf, and the file
     equals a serial single-process build."""

@@ -263,3 +263,40 @@ def test_frame_decompress_thread_invariance():
             os.environ.pop("SKA_THREADS", None)
         else:
             os.environ["SKA_THREADS"] = saved
+
+
+def test_library_builds_from_sources_when_absent(tmp_path):
+    """The shared object is not committed: with only csrc/ present,
+    concurrent first imports build it once (under the lock, renamed into
+    place) and every importer loads a complete library — including the
+    zlib-linked FASTQ engine."""
+    import shutil
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(os.path.join(repo, "csrc"), tmp_path / "csrc",
+                    ignore=shutil.ignore_patterns("*.so", "ref_baseline"))
+    io_dir = tmp_path / "ska_tpu" / "io"
+    io_dir.mkdir(parents=True)
+    shutil.copy(os.path.join(repo, "ska_tpu", "__init__.py"), io_dir.parent)
+    for name in ("__init__.py", "native.py", "nativebuild.py"):
+        shutil.copy(os.path.join(repo, "ska_tpu", "io", name), io_dir)
+    code = (
+        "from ska_tpu.io import native as m\n"
+        f"assert m.__file__.startswith({str(tmp_path)!r})\n"
+        "assert m.crc32c(b'123456789') == 0xE3069283\n"
+        "print(m._lib.ska_host_build_files2)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    env.pop("SKA_NATIVE_SO", None)
+    procs = [subprocess.Popen([sys.executable, "-c", code], env=env,
+                              cwd=tmp_path, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE)
+             for _ in range(3)]
+    for p in procs:
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err.decode()[-1500:]
+    names = set(os.listdir(io_dir))
+    assert "_skanative.so" in names
+    assert not [n for n in names if n.endswith(".tmp")]  # no half builds

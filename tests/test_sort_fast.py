@@ -105,3 +105,68 @@ def test_pipeline_w2_with_adversarial_shared_flanks():
         for (h, l), s in zip(keys_np, sets_np)
     }
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# The sort every device path uses (sort_with -> lax_sort_fast) on the
+# shapes the build pipeline feeds it: u64 keys with payloads at pow2
+# lengths, two-limb keys, odd lengths, and all-ones pad sentinels.
+
+
+def _check_multiset(ops_in, ops_out):
+    a1 = sorted(zip(*[np.asarray(o).reshape(-1).tolist() for o in ops_in]))
+    a2 = sorted(zip(*[np.asarray(o).reshape(-1).tolist() for o in ops_out]))
+    assert a1 == a2
+
+
+@pytest.mark.parametrize("L", [1 << 13, 1 << 14, 1 << 15])
+def test_sort_with_u64_keys_with_payload(L):
+    rng = np.random.default_rng(7)
+    # many duplicates to stress tie handling
+    x = rng.integers(0, 97, size=L, dtype=np.uint64) * np.uint64(
+        0x9E3779B97F4A7C15
+    )
+    pay = rng.integers(0, 2**31, size=L, dtype=np.int32)
+    sk, _, (sp,) = K.sort_with(jnp.asarray(x)[:, None], (jnp.asarray(pay),))
+    order = np.argsort(x, kind="stable")
+    assert np.array_equal(np.asarray(sk)[:, 0], x[order])
+    assert np.array_equal(np.asarray(sp), pay[order])  # stable payloads
+    _check_multiset((x, pay), (np.asarray(sk)[:, 0], sp))
+
+
+def test_sort_with_two_limb_keys_bool_payload():
+    rng = np.random.default_rng(3)
+    L = 1 << 13
+    hi = rng.integers(0, 3, size=L, dtype=np.uint64)
+    lo = rng.integers(0, 2**63, size=L, dtype=np.uint64)
+    em = rng.integers(0, 2, size=L).astype(bool)
+    keys = jnp.stack([jnp.asarray(hi), jnp.asarray(lo)], axis=-1)
+    sk, _, (se,) = K.sort_with(keys, (jnp.asarray(em),))
+    gk = np.asarray(sk)
+    order = np.lexsort((lo, hi))
+    assert (gk[:, 0] == hi[order]).all() and (gk[:, 1] == lo[order]).all()
+    _check_multiset((hi, lo, em), (gk[:, 0], gk[:, 1], se))
+
+
+def test_lax_sort_fast_non_pow2_rows():
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 2**63, size=(3, 1000), dtype=np.uint64)
+    got = K.lax_sort_fast((jnp.asarray(x),), num_keys=1)
+    assert (np.asarray(got[0]) == np.sort(x, axis=-1)).all()
+
+
+def test_sentinels_sort_last():
+    # the pipeline pads with 0xFF..FF rows and relies on them at the tail
+    L = 1 << 13
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 2**62, size=L, dtype=np.uint64)
+    x[:100] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    hi = rng.integers(0, 2, size=L, dtype=np.uint64)
+    hi[:100] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    sk, _, _ = K.sort_with(
+        jnp.stack([jnp.asarray(hi), jnp.asarray(x)], axis=-1), ()
+    )
+    got = np.asarray(sk)
+    assert (got[-100:] == np.uint64(0xFFFFFFFFFFFFFFFF)).all()
+    order = np.lexsort((x, hi))
+    assert (got[:, 1] == x[order]).all()

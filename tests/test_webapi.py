@@ -1,4 +1,4 @@
-"""Tests for the in-memory JSON API (ska_tpu.webapi) — the TPU-native
+"""Tests for the in-memory JSON API (ska_tpu.webapi) — this framework's
 equivalent of the reference WASM frontend (src/wasm/, lib.rs:894-1446).
 
 No reference oracles exist for the browser build (it is untested in the
